@@ -1,9 +1,9 @@
-"""Multi-chip scaling: shard a simulation over a TPU device mesh.
+"""Multi-device scaling: shard a simulation over a device mesh.
 
-Runs on any host — without real chips it creates 8 virtual CPU devices,
-which is exactly how the test suite validates the sharded paths
-(SURVEY.md §4.4). On a real TPU pod slice, drop the virtual-device
-setup and the same code scales over ICI.
+Runs on any host — it creates 8 virtual CPU devices, which is exactly
+how the test suite validates the sharded paths (SURVEY.md §4.4). On a
+multi-GPU host, drop the virtual-device setup and the same code shards
+over the cards (``chip_smoke.py --four-gpus`` does so on four).
 
     python examples/sharded_run.py            # 8 virtual CPU devices
     python examples/sharded_run.py --mesh 4x2 # 2-D (X×Y) decomposition
@@ -25,8 +25,8 @@ parser.add_argument("--res", type=int, default=128)
 parser.add_argument("--steps", type=int, default=50)
 args = parser.parse_args()
 
-# Virtual devices for hosts without a pod slice; must be set before jax
-# initializes a backend. (On a real multi-chip host, delete these lines.)
+# Virtual devices for hosts without several cards; must be set before jax
+# initializes a backend. (On a real multi-GPU host, delete these lines.)
 flags = os.environ.get("XLA_FLAGS", "")
 if "device_count" not in flags:
     os.environ["XLA_FLAGS"] = (

@@ -1,13 +1,13 @@
-"""fluid2d_tpu — a TPU-native 2D incompressible Navier-Stokes framework.
+"""fluid2d_tpu — a 2D incompressible Navier-Stokes framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capability surface
+A from-scratch JAX/XLA re-design with the full capability surface
 of takah29/2d-fluid-simulator (MAC fractional-step solver; upwind /
 Kawamura-Kuwahara / CIP advection; Jacobi & red-black SOR pressure
 solvers; six boundary-condition scenes incl. image-mask obstacles;
 vorticity confinement; passive RGB dye transport; four visualizations),
-plus TPU-first infrastructure: whole-step jit + ``lax.scan`` time loops,
-grid sharding over device meshes with halo exchange, Pallas kernels for
-the hot stencils, checkpoint/resume, and benchmarking.
+plus accelerator infrastructure: whole-step jit + ``lax.scan`` time
+loops, grid sharding over device meshes with halo exchange,
+checkpoint/resume, and benchmarking.
 """
 
 from fluid2d_tpu.config import SimConfig, default_dt

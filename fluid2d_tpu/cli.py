@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Mirrors the reference CLI's flag surface (``/root/reference/main.py:11-51``)
-and adds what a headless TPU host needs: a bounded step count, frame/PNG
+and adds what a headless accelerator host needs: a bounded step count, frame/PNG
 output instead of a GUI window, checkpointing, and performance logging.
 The reference's interactive keys map to flags: ``s`` (screenshot) →
 ``--save-frames``, ``d`` (field dump) → ``--dump-fields`` /
@@ -11,6 +11,7 @@ The reference's interactive keys map to flags: ``s`` (screenshot) →
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -32,14 +33,13 @@ DEFAULTS = {
     "pressure_solver": "sor",
     "sor_omega": 1.3,
     "pressure_iters": 2,
-    "kernels": "auto",
     "dtype": "float32",
     "mask_image": "",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="TPU-native 2D fluid simulator")
+    parser = argparse.ArgumentParser(description="2D incompressible fluid simulator")
     unset = argparse.SUPPRESS
     parser.add_argument("-bc", "--boundary_condition", type=int,
                         choices=[1, 2, 3, 4, 5, 6], default=unset,
@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Disable dye transport")
     parser.add_argument("-cpu", "--cpu", action="store_true",
                         help="Force the CPU backend")
-    # --- additions over the reference (headless/TPU operation) ----------
+    # --- additions over the reference (headless operation) --------------
     parser.add_argument("--steps", type=int, default=1000,
                         help="Number of simulation steps to run")
     parser.add_argument("--frame-every", type=int, default=0,
@@ -87,17 +87,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pressure-solver", type=str, choices=["sor", "jacobi"],
                         default=argparse.SUPPRESS,
                         help="Pressure Poisson solver (default sor)")
-    parser.add_argument("--kernels", type=str, choices=["auto", "xla", "pallas"],
-                        default=argparse.SUPPRESS,
-                        help="Compute path: fused Pallas kernels (TPU default) "
-                             "or plain XLA")
     parser.add_argument("--dtype", type=str, choices=["float32", "bfloat16"],
                         default=argparse.SUPPRESS,
-                        help="Transport (HBM storage) dtype of the state fields; "
-                             "arithmetic stays float32. bfloat16 halves kernel "
-                             "HBM traffic (the measured byte-rate bound, "
-                             "docs/BENCH.md) at one bf16 rounding per field per "
-                             "phase (default float32 = reference parity)")
+                        help="Transport (device-memory storage) dtype of the state "
+                             "fields; arithmetic stays float32. bfloat16 halves "
+                             "the bytes each phase moves at one bf16 rounding per "
+                             "field per phase (default float32 = reference parity)")
     parser.add_argument("--sor-omega", type=float, default=argparse.SUPPRESS,
                         help="SOR relaxation factor (default 1.3)")
     parser.add_argument("--pressure-iters", type=int, default=argparse.SUPPRESS,
@@ -116,16 +111,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--interactive", action="store_true",
                         help="Open an interactive window (needs a display); "
                              "keys: p pause, v cycle vis, s screenshot, d dump, q quit")
-    parser.add_argument("--compile-cache", type=str, default="auto",
-                        help="Persistent XLA compilation cache directory "
-                             "('auto' → ~/.cache/fluid2d_tpu/xla; 'off' disables). "
-                             "Amortizes the 20-40 s first compile across runs")
-    parser.add_argument("--scoped-vmem", type=int, default=65536,
-                        help="TPU scoped-VMEM limit in KiB requested via "
-                             "LIBTPU_INIT_ARGS (0 keeps the 16384 default; "
-                             "larger limits unlock measured-faster kernel "
-                             "tiles — docs/BENCH.md)")
     return parser
+
+
+def cpu_requested(cpu_flag: bool, *platform_settings: str | None) -> bool:
+    """Whether the user asked for the CPU: ``-cpu``, or ``cpu`` first in a
+    platform list such as ``jax_platforms`` / ``JAX_PLATFORMS``."""
+    return cpu_flag or any(
+        s and s.split(",")[0].strip() == "cpu" for s in platform_settings
+    )
 
 
 def resolve_args(args: argparse.Namespace):
@@ -151,26 +145,22 @@ def main(argv: list[str] | None = None) -> None:
     if args.visualization == 3 and args.no_dye:
         parser.error("-vis 3 (dye) requires dye transport; drop -no_dye")
 
+    import jax
+
     if args.cpu:
-        import jax
-
-        # Env vars can be overridden by site customization that pre-registers
-        # accelerator backends; setting the config directly always wins as
-        # long as no backend has been touched yet.
+        # Set before any backend is touched, so it wins over the
+        # environment's platform list.
         jax.config.update("jax_platforms", "cpu")
+    device = jax.devices()[0]
+    if device.platform == "cpu" and not cpu_requested(
+        args.cpu, jax.config.jax_platforms, os.environ.get("JAX_PLATFORMS")
+    ):
+        parser.error("no accelerator found, and the CPU was not asked for; "
+                     "pass -cpu (or set JAX_PLATFORMS=cpu) to run on the CPU")
 
-    if args.scoped_vmem:
-        from fluid2d_tpu.utils.tpu_flags import raise_scoped_vmem
+    from fluid2d_tpu.utils.cache import enable_compile_cache
 
-        raise_scoped_vmem(args.scoped_vmem)  # before the first TPU compile
-
-    if args.compile_cache != "off":
-        # enable_compile_cache is itself TPU-only (it checks the RESOLVED
-        # backend — `-cpu` alone would miss a host where jax silently
-        # falls back to CPU because no TPU exists).
-        from fluid2d_tpu.utils.cache import enable_compile_cache
-
-        enable_compile_cache(None if args.compile_cache == "auto" else args.compile_cache)
+    enable_compile_cache()
 
     import numpy as np  # deferred: after backend env is settled
 
@@ -183,14 +173,6 @@ def main(argv: list[str] | None = None) -> None:
 
     dt = args.time_step if args.time_step != 0.0 else None
     vor_eps = args.vorticity_confinement if args.vorticity_confinement != 0.0 else None
-
-    if args.kernels == "pallas":
-        import jax
-
-        if jax.default_backend() != "tpu":
-            print("note: --kernels pallas on a non-TPU backend runs in "
-                  "interpreter mode (slow; for debugging)")
-            args.kernels = "pallas_interpret"
 
     if args.resume:
         # Scene identity and config come from the checkpoint; explicitly
@@ -213,8 +195,6 @@ def main(argv: list[str] | None = None) -> None:
             overrides["n_pressure_iter"] = args.pressure_iters
         if explicit("pressure_solver"):
             overrides["pressure_solver"] = args.pressure_solver
-        if explicit("kernels"):
-            overrides["kernels"] = args.kernels
         if explicit("dtype"):
             overrides["dtype"] = args.dtype  # load re-narrows the state
         for dest, flag in (("advection_scheme", "-scheme"), ("no_dye", "-no_dye"),
@@ -240,7 +220,6 @@ def main(argv: list[str] | None = None) -> None:
             pressure_solver=args.pressure_solver,
             sor_omega=args.sor_omega,
             n_pressure_iter=args.pressure_iters,
-            kernels=args.kernels,
             dtype=args.dtype,
         )
         bc_num = args.boundary_condition if args.boundary_condition is not None else 1
@@ -274,6 +253,7 @@ def main(argv: list[str] | None = None) -> None:
         "bc_num", args.boundary_condition
     )
     print(
+        f"Device: {device.platform} {device.device_kind} x{len(jax.devices())}\n"
         f"Boundary Condition: {scene_desc}\ndt: {cfg.dt}\nRe: {cfg.re}\n"
         f"Resolution: {cfg.resolution}\nScheme: {cfg.scheme}\n"
         f"Vorticity confinement: {cfg.vor_eps}"

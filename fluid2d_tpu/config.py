@@ -38,21 +38,11 @@ class SimConfig:
     sor_omega: float = 1.3
     n_pressure_iter: int = 2
     velocity_limit: float = VELOCITY_LIMIT
-    # "auto": fused Pallas kernels on TPU, plain XLA elsewhere;
-    # "pallas" / "xla" force a path; "pallas_interpret" for CPU testing.
-    kernels: str = "auto"
-    # SOR iterations fused per Pallas kernel (1 or 2). 2 halves the
-    # pressure phase's HBM passes but measured ~2% SLOWER at res=1600 on
-    # v5e (the kernels are VPU-bound there and the depth-6 halo windows
-    # add compute) — see docs/BENCH.md ledger. Kept selectable for
-    # bandwidth-starved regimes.
-    sor_fuse: int = 1
-    # Transport (HBM storage) dtype for the state fields. All arithmetic
-    # stays float32 — kernels upcast on load and round once per phase
-    # store — so "bfloat16" halves every phase's HBM bytes at the cost
-    # of one bf16 rounding per field per phase (the kernels are measured
-    # byte-rate bound: docs/BENCH.md, the bf16 twin probe). float32 is
-    # the reference-parity default; bfloat16 is the opt-in fast path.
+    # Transport (device-memory storage) dtype of the state fields. All
+    # arithmetic stays float32: each phase upcasts on load and rounds
+    # once at its outputs, so "bfloat16" halves the bytes every phase
+    # reads and writes at the cost of one bf16 rounding per field per
+    # phase. float32 is the reference-parity default.
     dtype: str = "float32"  # "float32" | "bfloat16"
 
     @staticmethod
@@ -67,8 +57,6 @@ class SimConfig:
         sor_omega: float = 1.3,
         n_pressure_iter: int = 2,
         velocity_limit: float = VELOCITY_LIMIT,
-        kernels: str = "auto",
-        sor_fuse: int = 1,
         dtype: str = "float32",
     ) -> "SimConfig":
         """Mirror of the reference CLI's derived parameters
@@ -97,7 +85,5 @@ class SimConfig:
             sor_omega=sor_omega,
             n_pressure_iter=n_pressure_iter,
             velocity_limit=velocity_limit,
-            kernels=kernels,
-            sor_fuse=sor_fuse,
             dtype=dtype,
         )

@@ -21,7 +21,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from fluid2d_tpu.config import SimConfig
-from fluid2d_tpu.models.common import confinement, update_pressure_and_limit, use_pallas
+from fluid2d_tpu.models.common import confinement, update_pressure_and_limit
 from fluid2d_tpu.ops.cip import (
     cip_advect,
     non_advection_diffusion,
@@ -29,20 +29,16 @@ from fluid2d_tpu.ops.cip import (
     non_advection_velocity,
 )
 from fluid2d_tpu.ops.limiters import clamp_field
-from fluid2d_tpu.ops.pallas_phases import cip_dye_phase_pallas, cip_velocity_phase_pallas
-from fluid2d_tpu.ops.pallas_stencil import PallasInfeasibleError
 from fluid2d_tpu.scenes.compile import Scene
 from fluid2d_tpu.scenes.runtime_bc import dye_bc, velocity_bc
 from fluid2d_tpu.state import SimState
 from fluid2d_tpu.utils.dtypes import f32
-from fluid2d_tpu.utils.notes import note_once
 
-__all__ = ["cip_step"]
+__all__ = ["cip_step", "cip_velocity_phase", "cip_dye_phase"]
 
 
 def _advect_phase(f_na, gx_na, gy_na, vel, alt_f, alt_gx, alt_gy, scene, cfg):
-    """CIP advection at fluid cells, non-fluid from the alternate buffer
-    (jnp path)."""
+    """CIP advection at fluid cells, non-fluid from the alternate buffer."""
     f_cand, gx_cand, gy_cand = cip_advect(f_na, gx_na, gy_na, vel[0], vel[1], cfg.dt, cfg.dx)
     fl = scene.fluid
     return (
@@ -52,52 +48,59 @@ def _advect_phase(f_na, gx_na, gy_na, vel, alt_f, alt_gx, alt_gy, scene, cfg):
     )
 
 
+def cip_velocity_phase(state: SimState, scene: Scene, cfg: SimConfig):
+    """BC → non-advection → gradient update → CIP advection of the
+    velocity family. Returns ``(v, vx, vy, v_alt, vx_alt, vy_alt)``.
+
+    Transport dtype: upcast on load, round once at the six outputs
+    (utils/dtypes.py)."""
+    dt, dx = cfg.dt, cfg.dx
+    nw = scene.not_wall
+    sd = state.v.dtype
+    vc = velocity_bc(f32(state.v), scene)
+
+    # Non-advection (pressure + diffusion) into the alt buffer.
+    v_na = jnp.where(
+        nw, non_advection_velocity(vc, f32(state.p), cfg.re, dt, dx), f32(state.v_alt)
+    )
+    gx_cand, gy_cand = non_advection_grad(f32(state.vx), f32(state.vy), vc, v_na, dx)
+    vx_na = jnp.where(nw, gx_cand, f32(state.vx_alt))
+    vy_na = jnp.where(nw, gy_cand, f32(state.vy_alt))
+    # (swap: current = *_na, next = pre-phase current)
+
+    # CIP advection at fluid cells, carried by the non-advected
+    # velocity; non-fluid cells of the write buffer keep the pre-phase
+    # values (vc for v — BC-fresh inflow/outflow survive).
+    v_cur, vx_cur, vy_cur = _advect_phase(
+        v_na, vx_na, vy_na, v_na, vc, f32(state.vx), f32(state.vy), scene, cfg
+    )
+    return tuple(a.astype(sd) for a in (v_cur, vx_cur, vy_cur, v_na, vx_na, vy_na))
+
+
+def cip_dye_phase(state: SimState, v, scene: Scene, cfg: SimConfig):
+    """The same two-phase CIP update on the 3-channel dye, carried by the
+    limited velocity `v`, then the [0, 1] clamp. Returns
+    ``(dye, dyex, dyey, dye_alt, dyex_alt, dyey_alt)``."""
+    dt, dx = cfg.dt, cfg.dx
+    nw = scene.not_wall
+    sd = state.dye.dtype
+    dc = dye_bc(f32(state.dye), scene)
+    d_na = jnp.where(nw, non_advection_diffusion(dc, cfg.re, dt, dx), f32(state.dye_alt))
+    dgx_cand, dgy_cand = non_advection_grad(f32(state.dyex), f32(state.dyey), dc, d_na, dx)
+    dx_na = jnp.where(nw, dgx_cand, f32(state.dyex_alt))
+    dy_na = jnp.where(nw, dgy_cand, f32(state.dyey_alt))
+
+    dye_adv, dyex_cur, dyey_cur = _advect_phase(
+        d_na, dx_na, dy_na, f32(v), dc, f32(state.dyex), f32(state.dyey), scene, cfg
+    )
+    dye_cur = clamp_field(dye_adv, 0.0, 1.0)
+    return tuple(a.astype(sd) for a in (dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na))
+
+
 def cip_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     """One CIP time step (``CipMacSolver.update``, ``fs/solver.py:192-202``;
     dye tail: ``DyeCipMacSolver.update``, ``:353-373``)."""
-    dt, dx = cfg.dt, cfg.dx
-    nw = scene.not_wall
-    fl = scene.fluid
-    pallas = use_pallas(cfg, state.p.shape[-2])
-    interp = cfg.kernels == "pallas_interpret"
-
-    if pallas:
-        # One fused kernel: BC → non-advection → gradient update → CIP
-        # advection, producing all six velocity-family buffers.
-        try:
-            v_cur, vx_cur, vy_cur, v_alt, vx_alt, vy_alt = cip_velocity_phase_pallas(
-                state.v, state.p, state.v_alt, state.vx, state.vx_alt,
-                state.vy, state.vy_alt, scene, cfg.re, dt, dx, interpret=interp,
-            )
-        except PallasInfeasibleError:
-            note_once("CIP velocity Pallas kernel infeasible at this grid "
-                      "size; the velocity phase falls back to the jnp path")
-            pallas = False  # grid too wide for VMEM tiles — jnp path
-    if not pallas:
-        # Transport dtype: upcast on load, round once at the six phase
-        # outputs — the same rounding points as the Pallas kernel's
-        # stores (utils/dtypes.py).
-        sd = state.v.dtype
-        vc = velocity_bc(f32(state.v), scene)
-
-        # --- Phase 1: non-advection (pressure + diffusion) into the alt
-        # buffer.
-        v_na = jnp.where(
-            nw, non_advection_velocity(vc, f32(state.p), cfg.re, dt, dx), f32(state.v_alt)
-        )
-        gx_cand, gy_cand = non_advection_grad(f32(state.vx), f32(state.vy), vc, v_na, dx)
-        vx_na = jnp.where(nw, gx_cand, f32(state.vx_alt))
-        vy_na = jnp.where(nw, gy_cand, f32(state.vy_alt))
-        # (swap: current = *_na, next = pre-phase current)
-
-        # --- Phase 2: CIP advection at fluid cells, carried by the
-        # phase-1 velocity; non-fluid cells of the write buffer keep the
-        # pre-phase values (vc for v — BC-fresh inflow/outflow survive).
-        v_cur, vx_cur, vy_cur = _advect_phase(
-            v_na, vx_na, vy_na, v_na, vc, f32(state.vx), f32(state.vy), scene, cfg
-        )
-        v_cur, vx_cur, vy_cur = (a.astype(sd) for a in (v_cur, vx_cur, vy_cur))
-        v_alt, vx_alt, vy_alt = (a.astype(sd) for a in (v_na, vx_na, vy_na))
+    v_cur, vx_cur, vy_cur, v_alt, vx_alt, vy_alt = cip_velocity_phase(state, scene, cfg)
 
     if cfg.vor_eps is not None:
         v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
@@ -117,37 +120,9 @@ def cip_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     )
 
     if cfg.enable_dye:
-        dye_pallas = pallas
-        if dye_pallas:
-            try:
-                dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na = cip_dye_phase_pallas(
-                    state.dye, state.dye_alt, state.dyex, state.dyex_alt,
-                    state.dyey, state.dyey_alt, v_cur, scene, cfg.re, dt, dx,
-                    interpret=interp,
-                )
-            except PallasInfeasibleError:
-                note_once("CIP dye Pallas kernel infeasible at this grid "
-                          "size; the dye phase falls back to the jnp path")
-                dye_pallas = False
-        if not dye_pallas:
-            sd = state.dye.dtype
-            dc = dye_bc(f32(state.dye), scene)
-            d_na = jnp.where(
-                nw, non_advection_diffusion(dc, cfg.re, dt, dx), f32(state.dye_alt)
-            )
-            dgx_cand, dgy_cand = non_advection_grad(
-                f32(state.dyex), f32(state.dyey), dc, d_na, dx
-            )
-            dx_na = jnp.where(nw, dgx_cand, f32(state.dyex_alt))
-            dy_na = jnp.where(nw, dgy_cand, f32(state.dyey_alt))
-
-            dye_adv, dyex_cur, dyey_cur = _advect_phase(
-                d_na, dx_na, dy_na, f32(v_cur), dc, f32(state.dyex), f32(state.dyey),
-                scene, cfg
-            )
-            dye_cur = clamp_field(dye_adv, 0.0, 1.0).astype(sd)
-            dyex_cur, dyey_cur = dyex_cur.astype(sd), dyey_cur.astype(sd)
-            d_na, dx_na, dy_na = (a.astype(sd) for a in (d_na, dx_na, dy_na))
+        dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na = cip_dye_phase(
+            state, v_cur, scene, cfg
+        )
         kw.update(
             dye=dye_cur,
             dye_alt=d_na,

@@ -1,5 +1,5 @@
-"""Shared pieces of the time-step models (pressure solve, momentum RHS,
-kernel-path dispatch)."""
+"""Shared pieces of the time-step models (pressure solve, velocity
+limiter, vorticity confinement, momentum RHS)."""
 
 from __future__ import annotations
 
@@ -8,18 +8,11 @@ import jax.numpy as jnp
 
 from fluid2d_tpu.config import SimConfig
 from fluid2d_tpu.ops.limiters import limit_vector_norm
-from fluid2d_tpu.ops.pallas_stencil import (
-    PallasInfeasibleError,
-    jacobi_iteration_pallas,
-    pick_tile,
-    sor_iteration_pallas,
-)
 from fluid2d_tpu.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
 from fluid2d_tpu.ops.stencil import diff2_x, diff2_y, diff_x, diff_y
 from fluid2d_tpu.ops.vorticity import apply_confinement
 from fluid2d_tpu.scenes.compile import Scene
 from fluid2d_tpu.utils.dtypes import f32
-from fluid2d_tpu.utils.notes import note_once
 
 __all__ = [
     "update_pressure",
@@ -27,17 +20,7 @@ __all__ = [
     "confinement",
     "pressure_gradient",
     "laplacian",
-    "use_pallas",
 ]
-
-
-def use_pallas(cfg: SimConfig, x_rows: int) -> bool:
-    """Whether to route a phase through the fused Pallas kernels."""
-    if cfg.kernels == "xla":
-        return False
-    if cfg.kernels in ("pallas", "pallas_interpret"):
-        return True
-    return jax.default_backend() == "tpu" and pick_tile(x_rows) is not None
 
 
 def pressure_gradient(p, dx: float):
@@ -56,187 +39,42 @@ def update_pressure(p_cur, p_alt, v, scene: Scene, cfg: SimConfig):
     ``(p_cur, p_alt)`` pair."""
     if cfg.n_pressure_iter <= 0:
         return p_cur, p_alt
-    interp = cfg.kernels == "pallas_interpret"
-    if cfg.pressure_solver == "jacobi" and use_pallas(cfg, p_cur.shape[-2]):
-        try:
-            return _jacobi_pallas_iters(p_cur, p_alt, v, scene, cfg, interp)
-        except PallasInfeasibleError:
-            note_once("Pallas Jacobi kernel infeasible at this grid size; "
-                      "pressure iterations fall back to the jnp path (slower)")
-    sor_pallas = cfg.pressure_solver == "sor" and use_pallas(cfg, p_cur.shape[-2])
-    if sor_pallas and cfg.n_pressure_iter <= 4:
-        try:
-            return _sor_pallas_iters(p_cur, p_alt, v, scene, cfg, interp)
-        except PallasInfeasibleError:
-            note_once("Pallas SOR kernel infeasible at this grid size; "
-                      "pressure iterations fall back to the jnp path (slower)")
-            sor_pallas = False
-    if sor_pallas:
-        # Only the n > 4 lax.scan path reaches here with sor_pallas still
-        # set (the ≤4 path returned or proved infeasibility above);
-        # feasibility is resolution-dependent — the kernel's own pure
-        # probe decides (same halo bound + tile pick, nothing traced).
-        try:
-            sor_iteration_pallas(
-                p_cur, p_alt, v[0], v[1], scene.pbc_code, scene.fluid8,
-                cfg.sor_omega, cfg.dt, cfg.dx, probe=True, interpret=interp,
-            )
-        except PallasInfeasibleError:
-            note_once("Pallas SOR kernel infeasible at this grid size; "
-                      "pressure iterations fall back to the jnp path (slower)")
-            sor_pallas = False
+    # Arithmetic in f32 regardless of the transport dtype; round back
+    # once after the iterations (utils/dtypes.py).
     sd = p_cur.dtype
-    if sor_pallas:
-        one = lambda pair, _: (  # noqa: E731
-            sor_iteration_pallas(
-                *pair, v[0], v[1], scene.pbc_code, scene.fluid8,
-                cfg.sor_omega, cfg.dt, cfg.dx, interpret=interp,
-            ),
-            None,
-        )
+    u32, w32 = f32(v[0]), f32(v[1])
+    if cfg.pressure_solver == "sor":
+        def one(pair, _):
+            return sor_pressure_iteration(*pair, u32, w32, scene, cfg.sor_omega,
+                                          cfg.dt, cfg.dx), None
     else:
-        # jnp path: arithmetic in f32 regardless of the transport dtype;
-        # round back once after the iterations (utils/dtypes.py).
-        p_cur, p_alt = f32(p_cur), f32(p_alt)
-        u32, w32 = f32(v[0]), f32(v[1])
-        if cfg.pressure_solver == "sor":
-            one = lambda pair, _: (  # noqa: E731
-                sor_pressure_iteration(*pair, u32, w32, scene, cfg.sor_omega, cfg.dt, cfg.dx),
-                None,
-            )
-        else:
-            one = lambda pair, _: (  # noqa: E731
-                jacobi_pressure_iteration(*pair, u32, w32, scene, cfg.dt, cfg.dx),
-                None,
-            )
+        def one(pair, _):
+            return jacobi_pressure_iteration(*pair, u32, w32, scene, cfg.dt, cfg.dx), None
 
+    pair = (f32(p_cur), f32(p_alt))
     if cfg.n_pressure_iter <= 4:
-        pair = (p_cur, p_alt)
         for _ in range(cfg.n_pressure_iter):
             pair, _ = one(pair, None)
-        return pair[0].astype(sd), pair[1].astype(sd)
-    pair, _ = jax.lax.scan(one, (p_cur, p_alt), None, length=cfg.n_pressure_iter)
+    else:
+        pair, _ = jax.lax.scan(one, pair, None, length=cfg.n_pressure_iter)
     return pair[0].astype(sd), pair[1].astype(sd)
 
 
 def update_pressure_and_limit(p_cur, p_alt, v, scene: Scene, cfg: SimConfig):
     """Pressure iterations + the velocity-norm limiter
     (``fs/solver.py:87-89``: all iterations read the same pre-limit v;
-    the limiter applies after). On the Pallas SOR path the limiter is
-    folded into the FINAL iteration (u/w tiles already in VMEM).
-    Returns ``(p_cur, p_alt, v_limited)``."""
-    interp = cfg.kernels == "pallas_interpret"
-    if (cfg.pressure_solver == "jacobi" and use_pallas(cfg, p_cur.shape[-2])
-            and cfg.n_pressure_iter >= 1):
-        try:
-            return _jacobi_pallas_iters(
-                p_cur, p_alt, v, scene, cfg, interp, v_limit=cfg.velocity_limit
-            )
-        except PallasInfeasibleError:
-            pass  # update_pressure below re-probes and prints the note
-    sor_pallas = cfg.pressure_solver == "sor" and use_pallas(cfg, p_cur.shape[-2])
-    if sor_pallas and 1 <= cfg.n_pressure_iter <= 4:
-        try:
-            return _sor_pallas_iters(
-                p_cur, p_alt, v, scene, cfg, interp, v_limit=cfg.velocity_limit
-            )
-        except PallasInfeasibleError:
-            pass  # update_pressure below re-probes and prints the note
+    the limiter applies after). Returns ``(p_cur, p_alt, v_limited)``."""
     p_cur, p_alt = update_pressure(p_cur, p_alt, v, scene, cfg)
     v_lim = limit_vector_norm(f32(v), cfg.velocity_limit).astype(v.dtype)
     return p_cur, p_alt, v_lim
 
 
-def _jacobi_pallas_iters(p_cur, p_alt, v, scene, cfg, interp, v_limit=None):
-    """The fused Pallas Jacobi chain (VERDICT r3 item #7): each kernel
-    fuses up to FOUR iterations (2-row halo per iteration vs SOR's 3),
-    so the default n_pressure_iter=2 is ONE kernel. Raises
-    PallasInfeasibleError when no tile fits (caller falls back to jnp).
-    With `v_limit`, the velocity limiter folds into the final call and a
-    3-tuple is returned."""
-
-    def call(pair, k, vl, probe=False):
-        return jacobi_iteration_pallas(
-            *pair, v[0], v[1], scene.pbc_code, scene.not_wall8,
-            cfg.dt, cfg.dx, n_iters=k, v_limit=vl, probe=probe, interpret=interp,
-        )
-
-    n = cfg.n_pressure_iter
-    step = min(n, 4)
-    # Probe EVERY distinct call form before tracing any real call: the
-    # final call folds the velocity limiter (higher VMEM cost), so
-    # probing only the vl=None form could admit a chain whose last link
-    # proves infeasible after intermediate calls already logged traffic
-    # (ADVICE r4 — log_traffic's really-dispatched invariant).
-    final_k = ((n - 1) % step) + 1
-    call((p_cur, p_alt), final_k, v_limit, probe=True)  # may raise → fallback
-    if n > step:
-        call((p_cur, p_alt), step, None, probe=True)
-
-    pair = (p_cur, p_alt)
-    while n > step:
-        pair = call(pair, step, None)
-        n -= step
-    return call(pair, n, v_limit)
-
-
-def _sor_pallas_iters(p_cur, p_alt, v, scene, cfg, interp, v_limit=None):
-    """The Pallas SOR chain; with ``cfg.sor_fuse >= 2``, greedy
-    2-iterations-per-kernel fusion (n=2 → ONE kernel; 3 → 2+1; 4 → 2+2),
-    degrading to single-iteration kernels where the depth-6-halo fused
-    kernel doesn't fit VMEM. Raises PallasInfeasibleError only when even
-    the single-iteration kernel is infeasible (caller falls back to the
-    jnp path). With `v_limit`, the velocity limiter folds into the final
-    call and a 3-tuple ``(p_cur, p_alt, v_limited)`` is returned."""
-
-    def call(pair, k, vl, probe=False):
-        return sor_iteration_pallas(
-            *pair, v[0], v[1], scene.pbc_code, scene.fluid8,
-            cfg.sor_omega, cfg.dt, cfg.dx, n_iters=k, v_limit=vl, probe=probe,
-            interpret=interp,
-        )
-
-    n = cfg.n_pressure_iter
-    step = 2 if n >= 2 and getattr(cfg, "sor_fuse", 1) >= 2 else 1
-    if step == 2:
-        try:
-            call((p_cur, p_alt), 2, None, probe=True)
-        except PallasInfeasibleError:
-            step = 1
-    if step == 1:
-        call((p_cur, p_alt), 1, None, probe=True)  # may raise → caller falls back
-    # Probe the final call's exact form too (it folds the velocity
-    # limiter, raising VMEM cost) so no intermediate call is traced —
-    # and traffic-logged — for a chain whose last link can't compile
-    # (ADVICE r4).
-    final_k = ((n - 1) % step) + 1
-    if v_limit is not None:
-        call((p_cur, p_alt), final_k, v_limit, probe=True)
-
-    pair = (p_cur, p_alt)
-    while n > step:
-        pair = call(pair, step, None)
-        n -= step
-    return call(pair, n, v_limit)
-
-
 def confinement(v_cur, v_alt, scene: Scene, cfg: SimConfig):
-    """Vorticity confinement + swap (``fs/solver.py:84-86``), fused
-    Pallas kernel on TPU."""
-    if use_pallas(cfg, v_cur.shape[-2]):
-        from fluid2d_tpu.ops.pallas_phases import confinement_pallas
-
-        try:
-            return confinement_pallas(
-                v_cur, v_alt, scene.fluid8, cfg.dt, cfg.vor_eps, cfg.dx,
-                interpret=(cfg.kernels == "pallas_interpret"),
-            )
-        except PallasInfeasibleError:
-            note_once("Pallas confinement kernel infeasible at this grid "
-                      "size; vorticity confinement falls back to the jnp path")
+    """Vorticity confinement + swap (``fs/solver.py:84-86``). Returns the
+    new ``(v_cur, v_alt)`` pair."""
     vn, _ = apply_confinement(
         f32(v_cur), f32(v_alt), scene.fluid, cfg.dt, cfg.vor_eps, cfg.dx
     )
-    # The alternate passes through untouched (the Pallas kernel's exact
-    # contract: only the fluid-updated buffer is a fresh store).
+    # After the swap the alternate is the pre-confinement current: only
+    # the fluid-updated buffer is a fresh store.
     return vn.astype(v_cur.dtype), v_cur

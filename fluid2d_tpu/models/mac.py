@@ -22,56 +22,54 @@ from fluid2d_tpu.models.common import (
     laplacian,
     pressure_gradient,
     update_pressure_and_limit,
-    use_pallas,
 )
 from fluid2d_tpu.ops.advection import advect_kk, advect_upwind
 from fluid2d_tpu.ops.limiters import clamp_field
-from fluid2d_tpu.ops.pallas_phases import mac_dye_phase_pallas, mac_velocity_phase_pallas
-from fluid2d_tpu.ops.pallas_stencil import PallasInfeasibleError
 from fluid2d_tpu.scenes.compile import Scene
 from fluid2d_tpu.scenes.runtime_bc import dye_bc, velocity_bc
 from fluid2d_tpu.state import SimState
 from fluid2d_tpu.utils.dtypes import f32
-from fluid2d_tpu.utils.notes import note_once
 
-__all__ = ["mac_step"]
+__all__ = ["mac_step", "mac_velocity_phase", "mac_dye_phase"]
 
 _ADVECT = {"upwind": advect_upwind, "kk": advect_kk}
+
+
+def mac_velocity_phase(state: SimState, scene: Scene, cfg: SimConfig):
+    """Velocity BC on the current buffer, then the fused momentum update
+    writes fluid cells of the alternate buffer; swap. Returns
+    ``(v, v_alt)``. Transport dtype: upcast on load, round once at the
+    outputs (utils/dtypes.py)."""
+    advect = _ADVECT[cfg.scheme]
+    dt, dx = cfg.dt, cfg.dx
+    sd = state.v.dtype
+    vc = velocity_bc(f32(state.v), scene)
+    rhs = (
+        -advect(vc[0], vc[1], vc, dx)
+        - pressure_gradient(f32(state.p), dx)
+        + laplacian(vc, dx) / cfg.re
+    )
+    v_cur = jnp.where(scene.fluid, vc + dt * rhs, f32(state.v_alt))
+    return v_cur.astype(sd), vc.astype(sd)
+
+
+def mac_dye_phase(state: SimState, v, scene: Scene, cfg: SimConfig):
+    """Pure advection of the dye by the limited velocity `v`, then a
+    global clamp to [0, 1] on the current buffer only. Returns
+    ``(dye, dye_alt)``."""
+    advect = _ADVECT[cfg.scheme]
+    sd = state.dye.dtype
+    dc = dye_bc(f32(state.dye), scene)
+    vel = f32(v)
+    dn = dc - cfg.dt * advect(vel[0], vel[1], dc, cfg.dx)
+    dye_cur = clamp_field(jnp.where(scene.fluid, dn, f32(state.dye_alt)), 0.0, 1.0)
+    return dye_cur.astype(sd), dc.astype(sd)
 
 
 def mac_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     """One MAC time step (``MacSolver.update``, ``fs/solver.py:79-89``;
     dye tail: ``DyeMacSolver.update``, ``:136-152``)."""
-    advect = _ADVECT[cfg.scheme]
-    dt, dx = cfg.dt, cfg.dx
-    pallas = use_pallas(cfg, state.p.shape[-2])
-    interp = cfg.kernels == "pallas_interpret"
-
-    # Velocity BC on the current buffer, then the fused momentum update
-    # writes fluid cells of the alternate buffer; swap.
-    if pallas:
-        try:
-            v_cur, v_alt = mac_velocity_phase_pallas(
-                state.v, state.p, state.v_alt, scene, cfg.scheme, cfg.re, dt, dx,
-                interpret=interp,
-            )
-        except PallasInfeasibleError:
-            note_once("MAC velocity Pallas kernel infeasible at this grid "
-                      "size; the velocity phase falls back to the jnp path")
-            pallas = False  # grid too wide for VMEM tiles — jnp path
-    if not pallas:
-        # Transport dtype: upcast on load, round once at the phase
-        # outputs — the same rounding points as the Pallas kernels'
-        # stores (utils/dtypes.py).
-        sd = state.v.dtype
-        vc = velocity_bc(f32(state.v), scene)
-        rhs = (
-            -advect(vc[0], vc[1], vc, dx)
-            - pressure_gradient(f32(state.p), dx)
-            + laplacian(vc, dx) / cfg.re
-        )
-        v_cur = jnp.where(scene.fluid, vc + dt * rhs, f32(state.v_alt)).astype(sd)
-        v_alt = vc.astype(sd)
+    v_cur, v_alt = mac_velocity_phase(state, scene, cfg)
 
     if cfg.vor_eps is not None:
         v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
@@ -81,28 +79,7 @@ def mac_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     kw = dict(step=state.step + 1, v=v_cur, v_alt=v_alt, p=p_cur, p_alt=p_alt)
 
     if cfg.enable_dye:
-        # Pure advection of the dye by the limited velocity, then a global
-        # clamp to [0, 1] on the current buffer only.
-        dye_pallas = pallas
-        if dye_pallas:
-            try:
-                dye_cur, dc = mac_dye_phase_pallas(
-                    state.dye, state.dye_alt, v_cur, scene, cfg.scheme, dt, dx,
-                    interpret=interp,
-                )
-            except PallasInfeasibleError:
-                note_once("MAC dye Pallas kernel infeasible at this grid "
-                          "size; the dye phase falls back to the jnp path")
-                dye_pallas = False
-        if not dye_pallas:
-            sd = state.dye.dtype
-            dc = dye_bc(f32(state.dye), scene)
-            vel = f32(v_cur)
-            dn = dc - dt * advect(vel[0], vel[1], dc, dx)
-            dye_cur = clamp_field(
-                jnp.where(scene.fluid, dn, f32(state.dye_alt)), 0.0, 1.0
-            ).astype(sd)
-            dc = dc.astype(sd)
+        dye_cur, dc = mac_dye_phase(state, v_cur, scene, cfg)
         kw.update(dye=dye_cur, dye_alt=dc)
 
     return state._replace(**kw)

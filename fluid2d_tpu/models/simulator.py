@@ -1,8 +1,8 @@
 """High-level simulator façade.
 
 API parity with the reference's ``FluidSimulator`` / ``DyeFluidSimulator``
-(``/root/reference/fs/fluid_simulator.py:13-176``) plus the capabilities a
-TPU-resident library needs: multi-step jitted runs (``lax.scan``, zero
+(``fs/fluid_simulator.py:13-176``) plus the capabilities an
+accelerator-resident library needs: multi-step jitted runs (``lax.scan``, zero
 host round-trips per step), full-state checkpoint/resume, and optional
 grid sharding over a device mesh.
 """
@@ -29,8 +29,8 @@ __all__ = ["FluidSimulator", "make_step_fn", "make_run_fn"]
 
 def scene_for_dtype(scene: Scene, cfg: SimConfig) -> Scene:
     """Cast the scene's float planes (inflow velocity / dye colors) to
-    the transport dtype so every Pallas operand of a phase shares one
-    HBM dtype (the masks stay int8). Identity for float32."""
+    the transport dtype so every float operand of a phase shares one
+    storage dtype (the masks stay bool/int8). Identity for float32."""
     dt = jnp.dtype(cfg.dtype)
     if scene.bc_const.dtype == dt:
         return scene
@@ -57,14 +57,10 @@ def make_run_fn(cfg: SimConfig):
 
     The scan body runs TWO steps per iteration. The (cur, alt) buffer
     pairs swap roles every step, so a 1-step body permutes the carry
-    slots each iteration and XLA must copy every fresh kernel output
-    back into its pinned while-carry buffer — the on-chip trace
-    (scripts/trace_kernels.py) measured those copies at 1.44 ms of the
-    5.50 ms res=1600 step (26%!), invisible to differential phase
-    timing. A 2-step body restores the parity (each pair swaps twice),
-    the slot assignment becomes the identity, and the copies vanish:
-    178.7 → 251.0 steps/s measured. A 4-step body adds nothing (249.1)
-    — the win is the period match, not the unroll depth."""
+    slots each iteration, and XLA may copy every fresh output back into
+    its while-carry buffer. A 2-step body swaps each pair twice, so the
+    slot assignment is the identity and no such copy is needed. Whether
+    XLA's GPU backend needs this is not measured yet."""
     step = step_fn_for(cfg)
 
     @functools.partial(jax.jit, static_argnums=2, donate_argnums=0)

@@ -1,3 +1,2 @@
 """Numerical operators: stencils, advection schemes, CIP, pressure,
-vorticity confinement, limiters — full-array JAX (with Pallas variants
-for the hot kernels in :mod:`fluid2d_tpu.ops.pallas_kernels`)."""
+vorticity confinement, limiters — full-array JAX that XLA fuses."""

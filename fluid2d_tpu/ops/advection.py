@@ -1,10 +1,10 @@
 """Full-array advection schemes (central, 1st-order upwind, Kawamura-Kuwahara).
 
-TPU-native re-design of the reference's per-cell advection device functions
+Full-array re-design of the reference's per-cell advection device functions
 (``/root/reference/fs/advection.py:7-60``): each scheme computes the
 advection term ``(v·∇)φ`` for the whole grid at once. Upwinding branches
 become ``jnp.where`` selects between pre-shifted difference arrays, which
-XLA fuses into one VPU pass — no per-cell control flow.
+XLA fuses into one elementwise pass — no per-cell control flow.
 
 Shapes: velocity components ``u, w`` are ``(X, Y)``; the advected field
 ``phi`` is ``(..., X, Y)`` (leading channel axes broadcast). Returns the

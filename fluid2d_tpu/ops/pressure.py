@@ -1,6 +1,6 @@
 """Pressure Poisson iteration operators (Jacobi and red-black SOR).
 
-TPU-native re-design of ``/root/reference/fs/pressure_updater.py``. The
+Full-array re-design of ``/root/reference/fs/pressure_updater.py``. The
 reference's double-buffer dance has observable staleness semantics that we
 reproduce exactly in functional form (required for ≤1e-5 RMS parity):
 

@@ -1,10 +1,10 @@
 """Clamp-to-edge stencil primitives, full-array (vectorized) form.
 
-TPU-native re-design of the reference's per-cell device functions
+Full-array re-design of the reference's per-cell device functions
 (``/root/reference/fs/differentiation.py:5-60``): instead of scalar
 ``sample(field, i+d, j)`` calls inside a grid-parallel kernel, every
 primitive here is a whole-array operation built from shifted slices, so
-XLA can fuse entire stencil expressions into a single HBM pass on the VPU.
+XLA can fuse entire stencil expressions into a single pass over memory.
 
 Semantics contract (must match the reference exactly for ≤1e-5 RMS parity):
 

@@ -1,1 +1,1 @@
-"""Grid sharding over TPU device meshes (GSPMD and explicit halo paths)."""
+"""Grid sharding over device meshes (GSPMD and explicit halo paths)."""

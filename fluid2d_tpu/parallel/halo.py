@@ -1,12 +1,11 @@
 """Explicit halo-exchange scaling path (shard_map + lax.ppermute).
 
 The GSPMD path (:mod:`fluid2d_tpu.parallel.sharding`) lets XLA insert a
-collective per shifted read — correct, but one small ICI transfer per
+collective per shifted read — correct, but one small transfer per
 stencil op. This module implements the classic **ghost-zone redundant
 compute** design instead: each device owns a grid slab extended by H
 ghost rows per side; ONE neighbor exchange per time step refreshes the
-ghosts, the whole unmodified step function (jnp or Pallas phase kernels)
-runs on the extended slab, and the ghost rows are sliced off. Cells
+ghosts, the whole unmodified step function runs on the extended slab, and the ghost rows are sliced off. Cells
 within the ghost region compute polluted values (the slab edge clamps
 like a global edge), but the pollution reaches at most the step's total
 stencil depth — H is chosen above it — so every interior row is exactly
@@ -16,17 +15,17 @@ Stencil-depth accounting per step (rows of influence):
   velocity BC (±2) → non-advection (±1) → gradients (±1) → CIP advection
   (±1) = 5; vorticity confinement +2; each SOR iteration +3 (BC + odd +
   even). Dye chain ≤ that of velocity. With the default 2 SOR iterations
-  the depth is 13; H rounds up to a multiple of 8 (Pallas tile math).
+  the depth is 13; H rounds up to a multiple of 8.
 
 The exchange itself is a pair of ``lax.ppermute`` shifts of H-row slabs
-over each mesh axis — contiguous ICI neighbor traffic, exactly the
+over each mesh axis — contiguous neighbor traffic, exactly the
 communication pattern a spatially-decomposed stencil code wants. Each
 link carries exactly H rows per direction per exchanged array; the
 shifted end-windows pad their far side with replicated filler instead
 of a second real strip (see :func:`exchange_ghosts`).
 
-Both 1-D ``("x",)`` and 2-D ``("x", "y")`` meshes are supported
-(VERDICT r3 item #3): on a 2-D mesh the row exchange runs first and the
+Both 1-D ``("x",)`` and 2-D ``("x", "y")`` meshes are supported:
+on a 2-D mesh the row exchange runs first and the
 column exchange ships the already row-extended slabs, so the corner
 ghosts arrive via the y-neighbor (whose row extension already contains
 the diagonal shard's rows) — two sequential 1-D exchanges, no separate
@@ -54,7 +53,7 @@ AXIS = "x"
 
 def ghost_width(cfg: SimConfig) -> int:
     """Ghost rows per side: the step's stencil-depth bound rounded up to
-    a multiple of 8 (so Pallas tile sizes stay valid)."""
+    a multiple of 8."""
     depth = 5  # BC(2) + non-advection(1) + gradients(1) + advection(1)
     if cfg.vor_eps is not None:
         depth += 2
@@ -78,8 +77,7 @@ def exchange_ghosts(arr, h: int, n_dev: int, axis_name: str = AXIS,
     slab extended by `h` neighbor rows per side along `dim` — via
     ``ppermute`` over mesh axis `axis_name`.
 
-    Every link ships exactly **h rows per direction** (VERDICT r2 item
-    #4 — round 1 shipped 2h). The window is row-SHIFTED at the mesh
+    Every link ships exactly **h rows per direction**. The window is row-SHIFTED at the mesh
     ends: shard 0's window starts at the true global row 0, so the
     step's clamp-to-edge at the slab boundary coincides with the REAL
     global edge. The h window rows beyond shard 0's real ghosts are
@@ -92,7 +90,7 @@ def exchange_ghosts(arr, h: int, n_dev: int, axis_name: str = AXIS,
 
     The three window layouts are built under ``lax.switch`` so each
     device materializes ONE concatenation, not three selected variants
-    (VERDICT r3 item #8 — the old where-select form paid 3× concat
+    (a where-select of all three would pay 3× the concatenation
     traffic, which bites at small slabs).
     """
     dim = dim % arr.ndim
@@ -139,8 +137,7 @@ def make_sharded_run_halo(cfg: SimConfig, mesh: Mesh, h: int | None = None):
     sharded or replicated (it is gathered into per-shard ghost-extended
     slabs once, outside the time loop).
 
-    Equivalent to the single-device run up to FP reordering; the Pallas
-    phase kernels run per-shard unmodified.
+    Equivalent to the single-device run up to FP reordering.
     """
     from fluid2d_tpu.models.simulator import make_run_fn, step_fn_for
 
@@ -190,11 +187,9 @@ def make_sharded_run_halo(cfg: SimConfig, mesh: Mesh, h: int | None = None):
             out = step(extend(st), scene_ext)
             return strip(out, x_loc, y_loc)
 
-        # Two steps per scan iteration: the (cur, alt) buffer roles swap
-        # each step, so a 1-step body permutes the while-carry slots and
-        # XLA copies every buffer back per iteration (measured 26% of the
-        # res=1600 step on-chip — see make_run_fn). Period 2 restores the
-        # identity slot assignment.
+        # Two steps per scan iteration, like make_run_fn: the (cur, alt)
+        # buffer roles swap each step, so a 2-step body keeps the
+        # while-carry slot assignment the identity.
         def body(st, _):
             return one(one(st)), None
 
@@ -221,7 +216,7 @@ def make_sharded_run_halo(cfg: SimConfig, mesh: Mesh, h: int | None = None):
         # Each axis's divisibility/ghost-depth constraint applies only
         # when that axis is actually decomposed (n>1): an undecomposed
         # axis exchanges nothing, so e.g. a 1-D x-mesh on a grid with
-        # Y < 2h still runs on the halo path (ADVICE r4).
+        # Y < 2h still runs on the halo path.
         x_rows, y_cols = state.p.shape[-2:]
         if n_x > 1 and (x_rows % n_x != 0 or x_rows // n_x < 2 * h):
             msg = (

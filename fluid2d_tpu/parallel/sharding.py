@@ -1,16 +1,17 @@
-"""Grid sharding over a TPU device mesh (GSPMD path).
+"""Grid sharding over a device mesh (GSPMD path).
 
 The reference is strictly single-device (SURVEY.md §2.3); scale-out here
 is spatial domain decomposition: every (…, X, Y) field and scene array is
 sharded along X over a 1-D ``jax.sharding.Mesh``. The step functions are
 pure ``jnp`` stencils, so GSPMD auto-partitions them — each shifted-slice
 read at a shard boundary lowers to a neighbor exchange (collective-permute
-over ICI), i.e. halo exchange without hand-written communication. The
+over the device links), i.e. halo exchange without hand-written
+communication. The
 widest stencil (Kawamura-Kuwahara) needs a halo of 2, which XLA derives
 itself from the slice widths.
 
-An explicit ``shard_map`` + ``lax.ppermute`` halo path for Pallas kernels
-lives in :mod:`fluid2d_tpu.parallel.halo`.
+An explicit ``shard_map`` + ``lax.ppermute`` ghost-window path lives in
+:mod:`fluid2d_tpu.parallel.halo`.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def make_mesh(n_devices: int | None = None, devices=None,
 
 def _spec_for(leaf, mesh: Mesh) -> P:
     """Shard the X axis (second-to-last) of grid arrays over mesh axis
-    "x" — and the lane axis over "y" when the mesh has one; replicate
+    "x" — and the Y axis (last) over "y" when the mesh has one; replicate
     scalars and indivisible leaves."""
     if getattr(leaf, "ndim", 0) < 2:
         return P()
@@ -78,27 +79,21 @@ def shard_simulator(sim, n_devices: int | None = None, path: str = "auto",
 
     Two routes:
 
-    * ``"halo"`` — the production path: explicit ghost-window
-      decomposition (:func:`fluid2d_tpu.parallel.halo.make_sharded_run_halo`),
-      ONE ppermute exchange per step, the fused Pallas phase kernels run
-      per-shard inside ``shard_map``.
-    * ``"gspmd"`` — XLA auto-partitioning of the plain-jnp step. A Pallas
-      custom-call on sharded arrays under plain jit has no SPMD
-      partitioning rule, so this route pins ``kernels="xla"`` (~3×
-      slower CIP steps on TPU).
+    * ``"halo"`` — explicit ghost-window decomposition
+      (:func:`fluid2d_tpu.parallel.halo.make_sharded_run_halo`): ONE
+      ppermute exchange per step, the unmodified step per shard inside
+      ``shard_map``.
+    * ``"gspmd"`` — XLA auto-partitioning of the same step: a collective
+      per shifted read at a shard boundary.
 
     ``"auto"`` picks halo whenever the grid splits into slabs wide enough
     for the ghost depth, else falls back to gspmd. With
     ``mesh_shape=(nx, ny)`` the grid is decomposed over BOTH axes on a
     2-D ``("x", "y")`` mesh — the halo path runs two sequential ghost
-    exchanges (rows, then row-extended columns; VERDICT r3 item #3).
+    exchanges (rows, then row-extended columns).
     The chosen route is printed (it changes the performance profile
     materially) and recorded as ``sim.shard_path``.
     """
-    import dataclasses
-
-    from fluid2d_tpu.models.simulator import make_run_fn
-
     if mesh_shape is not None:
         mesh = make_mesh(shape=mesh_shape)
     else:
@@ -113,7 +108,7 @@ def shard_simulator(sim, n_devices: int | None = None, path: str = "auto",
         h = ghost_width(sim.cfg)
         x_rows, y_cols = sim.state.p.shape[-2:]
         # Mirror halo.py's per-axis rule: an undecomposed axis (n == 1)
-        # exchanges nothing, so it imposes no slab constraint (ADVICE r4).
+        # exchanges nothing, so it imposes no slab constraint.
         fits = (
             (n_x == 1 or (x_rows % n_x == 0 and x_rows // n_x >= 2 * h))
             and (n_y == 1 or (y_cols % n_y == 0 and y_cols // n_y >= 2 * h))
@@ -125,20 +120,17 @@ def shard_simulator(sim, n_devices: int | None = None, path: str = "auto",
             sim.shard_path = "halo"
             mesh_desc = f"{n_x}x{n_y} mesh" if n_y > 1 else f"{n_dev} devices"
             print(f"sharding: ghost-window halo path over {mesh_desc} "
-                  f"(ghost width {h}, fused kernels per-shard)")
+                  f"(ghost width {h})")
             return mesh
         if path == "halo":
             msg = (f"halo path needs grid ({x_rows}, {y_cols}) to split into "
                    f"≥{2 * h}-row/col slabs across the {n_x}x{n_y} mesh")
             raise ValueError(msg)
         print(f"sharding: grid ({x_rows}, {y_cols}) too small for {2 * h}-deep ghost "
-              f"slabs on the {n_x}x{n_y} mesh; falling back to GSPMD (kernels=xla, slower)")
+              f"slabs on the {n_x}x{n_y} mesh; falling back to GSPMD")
 
-    if sim.cfg.kernels == "auto":
-        sim.cfg = dataclasses.replace(sim.cfg, kernels="xla")
-        sim._run = make_run_fn(sim.cfg)
     sim.state = shard_pytree(sim.state, mesh)
     sim.scene = shard_pytree(sim.scene, mesh)
     sim.shard_path = "gspmd"
-    print(f"sharding: GSPMD auto-partitioning over mesh {dict(zip(mesh.axis_names, mesh.devices.shape))} (kernels=xla)")
+    print(f"sharding: GSPMD auto-partitioning over mesh {sizes}")
     return mesh

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime components.
 
-The TPU compute path is JAX/XLA/Pallas (the role Taichi's C++ runtime
+The compute path is JAX/XLA (the role Taichi's C++ runtime
 plays in the reference — see SURVEY.md §2.2); the host-side runtime
 pieces that benefit from native code live here. Currently: the scene
 rasterizer (``rasterizer.cpp``), built on demand with g++ and loaded via

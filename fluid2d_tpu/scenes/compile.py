@@ -5,7 +5,7 @@ with branchy neighbor tests, including *scatter* writes (a wall cell
 writes ghost velocity into its deeper neighbor,
 ``/root/reference/fs/boundary_condition.py:16-39``) and an 8-way elif
 chain for wall pressure (``:41-65``). Scenes are immutable after
-construction, so a TPU-first design precomputes all of it once on the
+construction, so this design precomputes all of it once on the
 host into static masks / pattern codes; the runtime kernels become pure
 branch-free gathers that XLA fuses into neighboring stencils.
 
@@ -29,7 +29,6 @@ reference's effective behavior):
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple
 
 import jax.numpy as jnp
@@ -53,13 +52,6 @@ class Scene(NamedTuple):
     even_fluid: jnp.ndarray
     vbc_targets: jnp.ndarray  # (4, X, Y) bool ghost-velocity target masks
     pbc_code: jnp.ndarray  # (X, Y) int8 pressure pattern code 0..10
-    fluid8: jnp.ndarray  # (X, Y) int8 fluid mask (Pallas kernels' layout)
-    not_wall8: jnp.ndarray  # (X, Y) int8 ¬wall mask
-    inflow8: jnp.ndarray  # (X, Y) int8 inflow mask
-    vbc_code: jnp.ndarray  # (X, Y) int8 velocity-BC action: 0 none,
-    # 1..4 ghost pattern (priority 4>3>2>1 like the runtime where-chain),
-    # 5 inflow, 6 outflow. Equivalent to vbc_targets + mask codes for all
-    # scenes where ghost targets don't overlap inflow/outflow cells.
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -156,23 +148,6 @@ def compile_scene(bc: np.ndarray, bc_mask: np.ndarray, bc_dye: np.ndarray) -> Sc
     fluid = mask == 0
 
     targets = _velocity_ghost_targets(mask)
-    vbc_code = np.zeros(mask.shape, dtype=np.int8)
-    for k in range(4):  # ascending: later patterns overwrite (4 > 3 > 2 > 1)
-        vbc_code[targets[k]] = k + 1
-    overlap = targets.any(axis=0) & (mask >= 2)
-    if overlap.any():
-        # The packed code stores one action per cell; inflow/outflow wins
-        # here like the runtime where-chain — but the chain's outflow only
-        # overrides the x-component, keeping a ghost-written y. No built-in
-        # scene has such cells; warn for custom geometry (docs/PARITY.md §2).
-        warnings.warn(
-            f"{int(overlap.sum())} ghost-velocity targets coincide with "
-            "inflow/outflow cells; the Pallas BC path keeps those cells' "
-            "y-component un-ghosted (XLA path ghost-writes it first)",
-            stacklevel=2,
-        )
-    vbc_code[mask == 2] = 5
-    vbc_code[mask == 3] = 6
 
     return Scene(
         bc_const=jnp.asarray(np.moveaxis(bc.astype(np.float32), -1, 0)),
@@ -187,10 +162,6 @@ def compile_scene(bc: np.ndarray, bc_mask: np.ndarray, bc_dye: np.ndarray) -> Sc
         even_fluid=jnp.asarray(fluid & ~parity),
         vbc_targets=jnp.asarray(targets),
         pbc_code=jnp.asarray(_pressure_codes(mask)),
-        fluid8=jnp.asarray(fluid.astype(np.int8)),
-        not_wall8=jnp.asarray((mask != 1).astype(np.int8)),
-        inflow8=jnp.asarray((mask == 2).astype(np.int8)),
-        vbc_code=jnp.asarray(vbc_code),
     )
 
 

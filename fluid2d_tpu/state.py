@@ -8,9 +8,9 @@ reference's swap scheme leaves observable stale values in the off buffer
 steps earlier, and the SOR even sweep reads them), so bit-faithful parity
 requires carrying both. See ``docs/PARITY.md``.
 
-Fields use channel-leading layout ``(C, X, Y)`` so the grid's (X, Y) land
-on TPU sublane×lane tiles; the reference's (X, Y, C) layout would put a
-2- or 3-wide channel axis in the 128-lane dimension.
+Fields use channel-leading layout ``(C, X, Y)``: each channel is one
+contiguous (X, Y) plane, where the reference's (X, Y, C) layout would
+interleave a 2- or 3-wide channel axis into every row.
 
 CIP gradient fields are part of the state (and of checkpoints — fixing
 the reference's dump gap, ``main.py:129-132`` saves only v/p/dye).
@@ -54,7 +54,7 @@ def init_state(scene: Scene, cfg: SimConfig) -> SimState:
     """All-zero initial fields, with CIP gradients initialized from the
     (zero) fields like the reference's ``_set_grad`` (``fs/solver.py:190,351``).
 
-    Arrays are allocated in ``cfg.dtype`` — the transport (HBM storage)
+    Arrays are allocated in ``cfg.dtype`` — the transport (device-memory storage)
     dtype; all arithmetic remains float32 regardless (see config.py)."""
     x_res, y_res = scene.shape
     dt = jnp.dtype(cfg.dtype)

@@ -1,14 +1,10 @@
 """Transport-dtype helpers.
 
-``SimConfig.dtype`` is the *transport* (HBM storage) dtype of the state
-fields; all arithmetic stays float32 regardless. A ``bfloat16``
-transport mode halves every phase's HBM traffic at the cost of one bf16
-rounding per field per phase store. Measured value (docs/BENCH.md
-round-5 ledger): **+4-5% end-to-end at res=1600**, NOT the ~2× the
-no-op twin probe suggested — the twins model DMA only, and once the
-bytes halve the real kernels are VPU-bound (same device time at half
-the bytes; the on-chip trace shows dye 1549 µs bf16 vs 1570 f32). These
-helpers centralize the two conversions so every compute path rounds at
+``SimConfig.dtype`` is the *transport* (device-memory storage) dtype of
+the state fields; all arithmetic stays float32 regardless. A
+``bfloat16`` transport mode halves the bytes every phase reads and
+writes at the cost of one bf16 rounding per field per phase store.
+These helpers centralize the two conversions so every phase rounds at
 the same points: upcast on load (:func:`f32`), round once at the
 phase-output store (:func:`to_transport`).
 """

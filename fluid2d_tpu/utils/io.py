@@ -93,6 +93,16 @@ def save_checkpoint(path: str | Path, state: SimState, cfg: SimConfig,
     np.savez(path, **arrays)
 
 
+# SimConfig fields that older checkpoints may carry but the config no
+# longer has (the kernel-path selectors); dropped on load.
+_REMOVED_CONFIG_KEYS = ("kernels", "sor_fuse")
+
+
+def _config_from_meta(meta: dict) -> SimConfig:
+    fields = {k: v for k, v in meta["config"].items() if k not in _REMOVED_CONFIG_KEYS}
+    return SimConfig(**fields)
+
+
 def load_checkpoint(path: str | Path) -> tuple[SimState, SimConfig, dict]:
     """Restore (state, config, scene_meta) written by :func:`save_checkpoint`."""
     import jax.numpy as jnp
@@ -102,7 +112,7 @@ def load_checkpoint(path: str | Path) -> tuple[SimState, SimConfig, dict]:
         return _load_orbax(path)
     with np.load(path) as data:
         meta = json.loads(bytes(data["__config__"].tobytes()).decode())
-        cfg = SimConfig(**meta["config"])
+        cfg = _config_from_meta(meta)
         leaves = {
             name: jnp.asarray(data[name]) for name in SimState._fields if name in data.files
         }
@@ -124,7 +134,7 @@ def _load_orbax(path: Path) -> tuple[SimState, SimConfig, dict]:
 
     path = path.resolve()
     meta = json.loads((path / "config.json").read_text())
-    cfg = SimConfig(**meta["config"])
+    cfg = _config_from_meta(meta)
     with ocp.StandardCheckpointer() as ckptr:
         tree = ckptr.restore(path / "state")
     import jax.numpy as jnp

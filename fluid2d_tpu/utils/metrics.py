@@ -1,7 +1,7 @@
 """Run-time diagnostics and observability.
 
 The reference logs a single startup print (``main.py:71-74``); a
-production run on TPU needs per-interval health metrics: velocity
+headless production run needs per-interval health metrics: velocity
 divergence (what the pressure solve is driving down), max speed
 (the limiter's input), pressure residual scale, and NaN detection.
 """

@@ -2,7 +2,7 @@
 
 Parity targets: ``/root/reference/fs/visualization.py`` (colormaps) and
 the scale factors / wall color baked into the simulator's render kernels
-(``fs/fluid_simulator.py:16-17,38-58,121-126``). On TPU hosts there is no
+(``fs/fluid_simulator.py:16-17,38-58,121-126``). On headless hosts there is no
 GUI; frames are computed on device as (X, Y, 3) float32 and downloaded
 for PNG/video writing (see :mod:`fluid2d_tpu.utils.io`).
 """

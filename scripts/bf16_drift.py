@@ -10,10 +10,10 @@ real horizon, not the per-phase bound.
 This script runs the same seeded scene under both transports and records
 the relative error of v / p / dye against the f32 run at a geometric
 checkpoint schedule, plus the f32 run's own diagnostics as scale
-context. The result table lands in docs/BENCH.md.
+context, as one JSON line.
 
-CPU (small res, interpret-safe):   python scripts/bf16_drift.py --res 64 --steps 200 --cpu
-TPU (bench-scale, Pallas kernels): python scripts/bf16_drift.py --res 1600 --steps 2000
+CPU (small res):    python scripts/bf16_drift.py --res 64 --steps 200 --cpu
+GPU (bench scale):  python scripts/bf16_drift.py --res 1600 --steps 2000
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ def main() -> None:
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--points", type=int, default=6,
                    help="number of checkpoints (geometric up to --steps)")
-    p.add_argument("--kernels", type=str, default="auto")
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args()
 
@@ -56,9 +55,7 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
     else:
         from fluid2d_tpu.utils.cache import enable_compile_cache
-        from fluid2d_tpu.utils.tpu_flags import raise_scoped_vmem
 
-        raise_scoped_vmem()
         enable_compile_cache()
 
     from fluid2d_tpu.config import SimConfig
@@ -77,8 +74,7 @@ def main() -> None:
     runs = {}
     for dtype in ("float32", "bfloat16"):
         cfg = SimConfig.create(resolution=args.res, re=1e6, scheme=args.scheme,
-                               vor_eps=5.0, enable_dye=True,
-                               kernels=args.kernels, dtype=dtype)
+                               vor_eps=5.0, enable_dye=True, dtype=dtype)
         scene = scene_for_dtype(get_scene(args.bc, args.res), cfg)
         state = init_state(scene, cfg)
         run = make_run_fn(cfg)
@@ -121,7 +117,7 @@ def main() -> None:
 
     print(json.dumps({
         "res": args.res, "bc": args.bc, "scheme": args.scheme,
-        "backend": jax.default_backend(), "kernels": args.kernels,
+        "backend": jax.default_backend(),
         "drift": rows,
     }))
 

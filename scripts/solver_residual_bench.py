@@ -1,8 +1,7 @@
-"""Residual-matched Jacobi-vs-SOR comparison (VERDICT r4 item #5).
+"""Residual-matched Jacobi-vs-SOR comparison.
 
-The round-4 ledger row "Jacobi 306 vs SOR 286 steps/s" compared the two
-pressure solvers at EQUAL n_iter (=2), which is iteration-matched, not
-accuracy-matched: one SOR sweep pair (Gauss-Seidel coloring, ω=1.3,
+Comparing the two pressure solvers at EQUAL n_iter is iteration-matched,
+not accuracy-matched: one SOR sweep pair (Gauss-Seidel coloring, ω=1.3,
 fs/pressure_updater.py:70-114) converges faster per iteration than one
 Jacobi ping-pong (fs/pressure_updater.py:42-66). This script sweeps
 n_pressure_iter for BOTH solvers at the headline config and reports,
@@ -13,10 +12,10 @@ steps/s — so the honest comparison reads "steps/s at equal residual".
 Method: run `--settle` steps from the cold start so the divergence
 statistic reflects developed flow, measure RMS divergence averaged over
 the NEXT `--probe` steps (it fluctuates step to step), then time
-`--steps` steps. Health gate: interleave a reference config before and
-after (same discipline as docs/BENCH.md).
+`--steps` steps. Rates are device rates only when JAX runs on a GPU;
+the backend is printed first.
 
-Usage (TPU): python scripts/solver_residual_bench.py
+Usage: python scripts/solver_residual_bench.py
         [--res 1600] [--iters 1,2,4,6] [--steps 200]
 """
 
@@ -58,7 +57,7 @@ def run_one(res, solver, n_iter, settle, probe, steps, bc=2):
 
     # Post-step RMS divergence over fluid cells, averaged over `probe`
     # consecutive steps of the developed flow.
-    fluid = scene.fluid8 != 0
+    fluid = scene.fluid
     n_fluid = float(fluid.sum())
 
     @jax.jit
@@ -73,21 +72,17 @@ def run_one(res, solver, n_iter, settle, probe, steps, bc=2):
         resid.append(float(div_rms(state)))
     resid_mean = float(np.mean(resid))
 
-    # Timed run (same discipline as bench.py: fenced by a host read).
-    state = run(state, scene, steps)  # warm the exact (n=steps) trace
-    float(np.asarray(state.p[0, 0], np.float32))
+    # Timed run (same discipline as bench.py).
+    state = jax.block_until_ready(run(state, scene, steps))  # warm n=steps
     t0 = time.perf_counter()
-    state = run(state, scene, steps)
-    float(np.asarray(state.p[0, 0], np.float32))
+    state = jax.block_until_ready(run(state, scene, steps))
     rate = steps / (time.perf_counter() - t0)
     return resid_mean, rate
 
 
 if __name__ == "__main__":
     from fluid2d_tpu.utils.cache import enable_compile_cache
-    from fluid2d_tpu.utils.tpu_flags import raise_scoped_vmem
 
-    raise_scoped_vmem()
     enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--res", type=int, default=1600)

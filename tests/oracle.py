@@ -281,7 +281,7 @@ class Oracle:
                     vc[i, j] = self.vlimit * (vc[i, j] / norm)
 
     # ---- MAC path (fs/solver.py:53-162) ----------------------------------
-    def mac_step(self):
+    def mac_velocity_phase(self):
         m = self.mask
         X, Y = m.shape
         adv = ADVECT[self.scheme]
@@ -295,19 +295,28 @@ class Oracle:
                     lap = (diff2_x(vc, i, j, self.dx) + diff2_y(vc, i, j, self.dx)) / self.re
                     vn[i, j] = vc[i, j] + self.dt * (-a - gp + lap)
         self.v.swap()
+
+    def mac_dye_phase(self):
+        m = self.mask
+        X, Y = m.shape
+        adv = ADVECT[self.scheme]
+        self.set_dye_bc(self.dye.cur)
+        dc, dn, vcur = self.dye.cur, self.dye.nxt, self.v.cur
+        for i in range(X):
+            for j in range(Y):
+                if m[i, j] == 0:
+                    dn[i, j] = dc[i, j] - self.dt * adv(vcur, dc, i, j, self.dx)
+        self.dye.swap()
+        np.copyto(self.dye.cur, np.fmin(np.fmax(self.dye.cur, F(0.0)), F(1.0)))
+
+    def mac_step(self):
+        self.mac_velocity_phase()
         if self.vor_eps is not None:
             self.apply_confinement()
         self.update_pressure(self.v.cur)
         self.limit_field()
         if self.enable_dye:
-            self.set_dye_bc(self.dye.cur)
-            dc, dn, vcur = self.dye.cur, self.dye.nxt, self.v.cur
-            for i in range(X):
-                for j in range(Y):
-                    if m[i, j] == 0:
-                        dn[i, j] = dc[i, j] - self.dt * adv(vcur, dc, i, j, self.dx)
-            self.dye.swap()
-            np.copyto(self.dye.cur, np.fmin(np.fmax(self.dye.cur, F(0.0)), F(1.0)))
+            self.mac_dye_phase()
 
     # ---- CIP path (fs/solver.py:165-401) ----------------------------------
     def _non_advection(self, fn, fc, pc, with_pressure):
@@ -388,7 +397,7 @@ class Oracle:
         fx.swap()
         fy.swap()
 
-    def cip_step(self):
+    def cip_velocity_phase(self):
         self.set_velocity_bc(self.v.cur)
         self._non_advection(self.v.nxt, self.v.cur, self.p.cur, with_pressure=True)
         self._non_advection_grad(self.vx.nxt, self.vy.nxt, self.vx.cur, self.vy.cur,
@@ -397,20 +406,26 @@ class Oracle:
         self.vx.swap()
         self.vy.swap()
         self._advection_phase(self.v, self.vx, self.vy, self.v.cur)
+
+    def cip_dye_phase(self):
+        self.set_dye_bc(self.dye.cur)
+        self._non_advection(self.dye.nxt, self.dye.cur, None, with_pressure=False)
+        self._non_advection_grad(self.dyex.nxt, self.dyey.nxt, self.dyex.cur,
+                                 self.dyey.cur, self.dye.cur, self.dye.nxt)
+        self.dye.swap()
+        self.dyex.swap()
+        self.dyey.swap()
+        self._advection_phase(self.dye, self.dyex, self.dyey, self.v.cur)
+        np.copyto(self.dye.cur, np.fmin(np.fmax(self.dye.cur, F(0.0)), F(1.0)))
+
+    def cip_step(self):
+        self.cip_velocity_phase()
         if self.vor_eps is not None:
             self.apply_confinement()
         self.update_pressure(self.v.cur)
         self.limit_field()
         if self.enable_dye:
-            self.set_dye_bc(self.dye.cur)
-            self._non_advection(self.dye.nxt, self.dye.cur, None, with_pressure=False)
-            self._non_advection_grad(self.dyex.nxt, self.dyey.nxt, self.dyex.cur,
-                                     self.dyey.cur, self.dye.cur, self.dye.nxt)
-            self.dye.swap()
-            self.dyex.swap()
-            self.dyey.swap()
-            self._advection_phase(self.dye, self.dyex, self.dyey, self.v.cur)
-            np.copyto(self.dye.cur, np.fmin(np.fmax(self.dye.cur, F(0.0)), F(1.0)))
+            self.cip_dye_phase()
 
     def step(self):
         if self.scheme == "cip":

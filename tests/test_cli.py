@@ -1,5 +1,5 @@
-"""CLI flag semantics (resume overrides, GIF streaming) and the loud
-slow-path notes (VERDICT r2 items #5, #8, #10)."""
+"""CLI flag semantics (resume overrides, GIF streaming, platform
+checks)."""
 
 import argparse
 
@@ -8,12 +8,7 @@ import pytest
 from PIL import Image
 
 from fluid2d_tpu import cli
-from fluid2d_tpu.config import SimConfig
-from fluid2d_tpu.models.common import PallasInfeasibleError, confinement, update_pressure
-from fluid2d_tpu.scenes.compile import get_scene
-from fluid2d_tpu.state import init_state
 from fluid2d_tpu.utils.io import load_checkpoint, write_gif, write_png
-from fluid2d_tpu.utils.notes import reset_notes
 
 
 # --- resume-override semantics (sentinel defaults, not value equality) ----
@@ -36,7 +31,7 @@ def test_resume_repassed_default_applies(tmp_path):
     """`--resume ckpt --pressure-iters 2` must restore the default on a
     checkpoint saved with 4 (the r2 footgun: a re-passed default used to
     be indistinguishable from not-given)."""
-    common = ["-res", "16", "--output", str(tmp_path), "--compile-cache", "off"]
+    common = ["-res", "16", "--output", str(tmp_path)]
     ck1 = str(tmp_path / "a.npz")
     cli.main(["--steps", "2", "--pressure-iters", "4", "--checkpoint", ck1, *common])
     _, cfg1, _ = load_checkpoint(ck1)
@@ -57,7 +52,7 @@ def test_resume_repassed_default_applies(tmp_path):
 
 
 def test_resume_bc_override_discards_stored_mask_note(tmp_path, capsys):
-    """ADVICE r2: overriding -bc on resume drops a stored mask-image scene;
+    """Overriding -bc on resume drops a stored mask-image scene;
     that must be said out loud."""
     from fluid2d_tpu.models.simulator import FluidSimulator
 
@@ -94,134 +89,12 @@ def test_write_gif_streams_from_paths(tmp_path):
 def test_cli_gif_end_to_end(tmp_path):
     gif = tmp_path / "anim.gif"
     cli.main(["-res", "16", "--steps", "4", "--frame-every", "2",
-              "--gif", str(gif), "--output", str(tmp_path),
-              "--compile-cache", "off"])
+              "--gif", str(gif), "--output", str(tmp_path)])
     with Image.open(gif) as im:
         assert im.n_frames == 2
 
 
-# --- loud slow paths --------------------------------------------------------
-
-def _tiny(scheme="upwind", **kw):
-    cfg = SimConfig.create(resolution=16, scheme=scheme, enable_dye=True,
-                           kernels="pallas_interpret", **kw)
-    scene = get_scene(1, 16)
-    return cfg, scene, init_state(scene, cfg)
-
-
-def test_jacobi_pallas_dispatch_is_silent(capsys):
-    """Round 4 (VERDICT r3 item #7): --pressure-solver jacobi now has a
-    fused Pallas kernel, so the round-3 "no fused Pallas kernel" note is
-    unreachable — the dispatch must be silent on success and note only
-    genuine infeasibility."""
-    reset_notes()
-    cfg, scene, state = _tiny(vor_eps=None, pressure_solver="jacobi")
-    update_pressure(state.p, state.p_alt, state.v, scene, cfg)
-    assert capsys.readouterr().out == ""
-
-
-def test_jacobi_fallback_note(monkeypatch, capsys):
-    reset_notes()
-    import fluid2d_tpu.models.common as common_mod
-
-    def boom(*a, **k):
-        raise PallasInfeasibleError("test")
-
-    monkeypatch.setattr(common_mod, "_jacobi_pallas_iters", boom)
-    cfg, scene, state = _tiny(vor_eps=None, pressure_solver="jacobi")
-    p_cur, _ = update_pressure(state.p, state.p_alt, state.v, scene, cfg)
-    assert "Pallas Jacobi kernel infeasible" in capsys.readouterr().out
-    assert np.isfinite(np.asarray(p_cur)).all()
-
-
-def test_sor_fallback_note(monkeypatch, capsys):
-    reset_notes()
-    import fluid2d_tpu.models.common as common_mod
-
-    def boom(*a, **k):
-        raise PallasInfeasibleError("test")
-
-    monkeypatch.setattr(common_mod, "_sor_pallas_iters", boom)
-    cfg, scene, state = _tiny(vor_eps=None)
-    p_cur, _ = update_pressure(state.p, state.p_alt, state.v, scene, cfg)
-    assert "Pallas SOR kernel infeasible" in capsys.readouterr().out
-    assert np.isfinite(np.asarray(p_cur)).all()
-
-
-def test_velocity_and_dye_fallback_notes(monkeypatch, capsys):
-    """Each phase's fallback prints its own note. Probed in separate runs:
-    a velocity fallback intentionally skips the dye Pallas probe (same
-    grid would be infeasible), so only the failing phase speaks."""
-    import fluid2d_tpu.models.mac as mac_mod
-
-    def boom(*a, **k):
-        raise PallasInfeasibleError("test")
-
-    reset_notes()
-    cfg, scene, state = _tiny(vor_eps=None)
-    with monkeypatch.context() as m:
-        m.setattr(mac_mod, "mac_velocity_phase_pallas", boom)
-        out_state = mac_mod.mac_step(state, scene, cfg)
-    out = capsys.readouterr().out
-    assert "MAC velocity Pallas kernel infeasible" in out
-    assert np.isfinite(np.asarray(out_state.v)).all()
-
-    reset_notes()
-    with monkeypatch.context() as m:
-        m.setattr(mac_mod, "mac_dye_phase_pallas", boom)
-        out_state = mac_mod.mac_step(state, scene, cfg)
-    out = capsys.readouterr().out
-    assert "MAC dye Pallas kernel infeasible" in out
-    assert np.isfinite(np.asarray(out_state.dye)).all()
-
-
-def test_cip_fallback_notes(monkeypatch, capsys):
-    import fluid2d_tpu.models.cip as cip_mod
-
-    def boom(*a, **k):
-        raise PallasInfeasibleError("test")
-
-    reset_notes()
-    cfg, scene, state = _tiny(scheme="cip", vor_eps=None)
-    with monkeypatch.context() as m:
-        m.setattr(cip_mod, "cip_velocity_phase_pallas", boom)
-        out_state = cip_mod.cip_step(state, scene, cfg)
-    out = capsys.readouterr().out
-    assert "CIP velocity Pallas kernel infeasible" in out
-    assert np.isfinite(np.asarray(out_state.v)).all()
-
-    reset_notes()
-    with monkeypatch.context() as m:
-        m.setattr(cip_mod, "cip_dye_phase_pallas", boom)
-        out_state = cip_mod.cip_step(state, scene, cfg)
-    out = capsys.readouterr().out
-    assert "CIP dye Pallas kernel infeasible" in out
-    assert np.isfinite(np.asarray(out_state.dye)).all()
-
-
-def test_confinement_fallback_note(monkeypatch, capsys):
-    reset_notes()
-
-    def boom(*a, **k):
-        raise PallasInfeasibleError("test")
-
-    monkeypatch.setattr("fluid2d_tpu.ops.pallas_phases.confinement_pallas", boom)
-    cfg, scene, state = _tiny(vor_eps=5.0)
-    v_cur, _ = confinement(state.v, state.v_alt, scene, cfg)
-    assert "confinement kernel infeasible" in capsys.readouterr().out
-    assert np.isfinite(np.asarray(v_cur)).all()
-
-
-def test_notes_dedupe(capsys):
-    reset_notes()
-    from fluid2d_tpu.utils.notes import note_once
-
-    note_once("same thing")
-    note_once("same thing")
-    assert capsys.readouterr().out.count("same thing") == 1
-
-
-# --- mesh argument validation (ADVICE r2) -----------------------------------
+# --- mesh argument validation -----------------------------------
 
 def test_make_mesh_rejects_both_count_and_shape():
     from fluid2d_tpu.parallel.sharding import make_mesh

@@ -1,7 +1,4 @@
-"""utils/profiling: traffic accounting, bandwidth fallback, trace capture."""
-
-import functools
-import os
+"""utils/profiling: the step's byte floor, trace capture, device record."""
 
 import numpy as np
 
@@ -20,182 +17,6 @@ def test_step_min_bytes_ordering():
     assert 0 < b0 < b1 < b2
 
 
-def test_blockspec_bytes_ledger():
-    """The BlockSpec traffic ledger logs per-kernel bytes when the Pallas
-    path dispatches, and stays empty on the XLA path; every logged figure
-    must be at least one full read+write pass over the grid."""
-    cfg_xla = SimConfig.create(resolution=64, scheme="cip", vor_eps=5.0,
-                               enable_dye=True, kernels="xla")
-    assert profiling.step_blockspec_bytes(cfg_xla, 64) == {}
-
-    cfg_p = SimConfig.create(resolution=64, scheme="cip", vor_eps=5.0,
-                             enable_dye=True, kernels="pallas_interpret")
-    per_kernel = profiling.step_blockspec_bytes(cfg_p, 64)
-    assert {"cip_velocity", "cip_dye", "confinement"} <= set(per_kernel)
-    assert any(k.startswith("sor") for k in per_kernel)
-    cell = 128 * 64 * 4
-    for name, nbytes in per_kernel.items():
-        assert nbytes >= 2 * cell, name
-
-
-def test_mix_registry_matches_real_kernels():
-    """The roofline's no-op twins (`_KERNEL_MIXES`) must mirror the REAL
-    kernels' operand geometry, or `measure_mix_ceiling` measures the
-    wrong ceiling. Guard: every per-call byte figure the dispatched
-    kernels log must equal `mix_bytes` for the registered mix at the
-    logged tile. SOR/Jacobi log both limited and unlimited forms — the
-    unlimited form's bytes coincide with the x2-named mix (same inputs,
-    two center outputs)."""
-    res = 64
-    for scheme, solver in (("cip", "sor"), ("kk", "sor"), ("cip", "jacobi")):
-        _assert_registry(scheme, solver, res)
-
-
-def test_mix_registry_matches_real_kernels_bf16():
-    """Same guard under bf16 transport: the kernels log halved float
-    bytes and `mix_bytes(itemsize=2)` must agree (the bf16 roofline's
-    byte model)."""
-    _assert_registry("cip", "sor", 64, dtype="bfloat16")
-    _assert_registry("kk", "jacobi", 64, dtype="bfloat16")
-
-
-def test_slide_registry_matches_real_kernels():
-    """Same guard at a 128-aligned lane width, where the kernels
-    dispatch their SLIDING manual-DMA variants: the ("slide", T) tile
-    markers must route to slide_bytes figures that match the ledger."""
-    slid = _assert_registry("cip", "sor", 128)
-    slid |= _assert_registry("kk", "sor", 128)
-    assert slid, "no sliding dispatch at the 128-aligned width"
-
-
-def _assert_registry(scheme, solver, res, dtype="float32"):
-    """Trace one step, compare every logged per-call byte figure against
-    the registered twin's byte model at the logged tile. Returns whether
-    any sliding dispatch was seen."""
-    import fluid2d_tpu.ops.pallas_stencil as ps
-    from fluid2d_tpu.models.simulator import scene_for_dtype, step_fn_for
-    from fluid2d_tpu.scenes.compile import get_scene
-    from fluid2d_tpu.state import init_state
-    import jax
-    import jax.numpy as jnp
-
-    x_rows, y_cols = 2 * res, res
-    itemsize = jnp.dtype(dtype).itemsize
-    cfg = SimConfig.create(resolution=res, scheme=scheme, vor_eps=5.0,
-                           enable_dye=True, pressure_solver=solver,
-                           kernels="pallas_interpret", dtype=dtype)
-    scene = scene_for_dtype(get_scene(2, res), cfg)
-    state = init_state(scene, cfg)
-    step = step_fn_for(cfg)
-    ledger, tiles = [], {}
-    ps.TRAFFIC_LOG, ps.TILE_LOG = ledger, tiles
-    try:
-        jax.make_jaxpr(lambda s: step(s, scene))(state)
-    finally:
-        ps.TRAFFIC_LOG, ps.TILE_LOG = None, None
-    assert ledger, (scheme, solver)
-    slid = False
-    for name, nbytes in ledger:
-        t = tiles.get(name)
-        if t is None or (isinstance(t, tuple) and t[0] == "slide2d"):
-            continue  # 2-D variants: byte model lives in the kernel
-        if isinstance(t, tuple):  # ("slide", T) marker
-            bytes_fn, t = profiling.slide_bytes, t[1]
-            slid = True
-        else:
-            bytes_fn = functools.partial(profiling.mix_bytes, itemsize=itemsize)
-        expect = bytes_fn(name, x_rows, y_cols, t)
-        if name in ("sor_x1", "jacobi_x1", "jacobi_x2"):
-            # limited + unlimited forms: x1/x2 mixes differ only in
-            # the two extra limiter output planes
-            alt = "sor_x2" if name == "sor_x1" else (
-                "jacobi_x2" if name == "jacobi_x1" else "jacobi_x1")
-            allowed = {expect, bytes_fn(alt, x_rows, y_cols, t)}
-        else:
-            allowed = {expect}
-        assert expect is not None and nbytes in allowed, (
-            f"{name}@t={t}: logged {nbytes}, registry {sorted(allowed)}"
-        )
-    return slid
-
-
-def test_vpu_elops_counting():
-    """collect_pallas_elops counts weighted element-ops per pallas_call
-    from the traced kernel jaxpr: a mul+add kernel on (8,128) blocks over
-    a 4-program grid is exactly 2 ops × 8·128 × 4."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    def k(x_ref, o_ref):
-        o_ref[...] = x_ref[...] * 2.0 + 1.0
-
-    def f(x):
-        return pl.pallas_call(
-            k, grid=(4,),
-            in_specs=[pl.BlockSpec((8, 128), lambda i: (i, 0))],
-            out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((32, 128), jnp.float32),
-        )(x)
-
-    jaxpr = jax.make_jaxpr(f)(jnp.ones((32, 128)))
-    counts = profiling.collect_pallas_elops(jaxpr)
-    assert counts == [2 * 8 * 128 * 4]
-
-
-def test_vpu_elops_weights_divides_heavier():
-    """A divide counts more than a multiply (the strength-reduction
-    ledger row rests on this asymmetry being modeled)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    def mk(op):
-        def k(x_ref, o_ref):
-            o_ref[...] = op(x_ref[...])
-
-        def f(x):
-            return pl.pallas_call(
-                k,
-                in_specs=[pl.BlockSpec((8, 128), lambda: (0, 0))],
-                out_specs=pl.BlockSpec((8, 128), lambda: (0, 0)),
-                out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            )(x)
-
-        jaxpr = jax.make_jaxpr(f)(jnp.ones((8, 128)))
-        return profiling.collect_pallas_elops(jaxpr)[0]
-
-    assert mk(lambda x: x / 3.0) > mk(lambda x: x * 3.0)
-
-
-def test_step_elops_ledger_alignment():
-    """step_blockspec_bytes stashes a per-kernel VPU element-op count
-    aligned with the byte ledger: same kernel names, positive counts, and
-    the CIP dye kernel (3 channels of the ~100-pass advect DAG) must
-    out-weigh confinement."""
-    cfg = SimConfig.create(resolution=64, scheme="cip", vor_eps=5.0,
-                           enable_dye=True, kernels="pallas_interpret")
-    per_kernel = profiling.step_blockspec_bytes(cfg, 64)
-    elops = profiling.step_blockspec_bytes.last_elops
-    assert set(elops) == set(per_kernel)
-    assert all(v > 0 for v in elops.values())
-    assert elops["cip_dye"] > elops["confinement"]
-
-
-def test_measure_vpu_throughput_none_off_tpu():
-    """The VPU throughput probe declines to fabricate a rate off-TPU
-    (roofline rows then omit the VPU floor instead of lying)."""
-    assert profiling.measure_vpu_throughput() is None
-
-
-def test_measure_hbm_bandwidth_cpu_fallback():
-    """On non-TPU backends the Pallas copy kernel can't compile; the XLA
-    fallback must return a positive bandwidth instead of crashing
-    (bench.py --roofline on a CPU host)."""
-    bw = profiling.measure_hbm_bandwidth(mbytes=2, iters=10)
-    assert bw > 0
-
-
 def test_trace_context_writes_profile(tmp_path):
     """jax.profiler capture around a block produces trace artifacts."""
     import jax.numpy as jnp
@@ -207,77 +28,26 @@ def test_trace_context_writes_profile(tmp_path):
     assert any(f.is_file() for f in files)
 
 
-def test_scoped_vmem_flag_plumbing(monkeypatch):
-    """raise_scoped_vmem appends the libtpu flag exactly once, respects
-    an externally set value, and scoped_vmem_bytes reflects the request
-    (the tile cost models budget against it)."""
-    import fluid2d_tpu.utils.tpu_flags as tf
-
-    monkeypatch.delenv("LIBTPU_INIT_ARGS", raising=False)
-    monkeypatch.setattr(tf, "_requested_kib", None)
-    assert tf.scoped_vmem_bytes() == tf.DEFAULT_KIB * 1024
-
-    assert tf.raise_scoped_vmem() == tf.RAISED_KIB
-    env = os.environ["LIBTPU_INIT_ARGS"]
-    assert f"--xla_tpu_scoped_vmem_limit_kib={tf.RAISED_KIB}" in env
-    assert tf.scoped_vmem_bytes() == tf.RAISED_KIB * 1024
-    # Idempotent: a second call must not duplicate the flag.
-    assert tf.raise_scoped_vmem() == tf.RAISED_KIB
-    assert os.environ["LIBTPU_INIT_ARGS"].count("scoped_vmem_limit_kib") == 1
-
-    # Externally set values win over the default request.
-    monkeypatch.setenv("LIBTPU_INIT_ARGS", "--xla_tpu_scoped_vmem_limit_kib=20480")
-    monkeypatch.setattr(tf, "_requested_kib", None)
-    assert tf.raise_scoped_vmem() == 20480
-    assert tf.scoped_vmem_bytes() == 20480 * 1024
+def test_step_min_bytes_halves_with_bf16_transport():
+    f32 = SimConfig.create(resolution=64, scheme="cip", dtype="float32")
+    bf16 = SimConfig.create(resolution=64, scheme="cip", dtype="bfloat16")
+    assert profiling.step_min_bytes(f32, 128, 64) == 2 * profiling.step_min_bytes(bf16, 128, 64)
 
 
-def test_vmem_budgets_follow_scoped_limit(monkeypatch):
-    """_vmem_tile and pick_tile2d budgets scale with the scoped-VMEM
-    limit: the raised limit admits the measured-faster bigger tiles and
-    the default limit reproduces the round-2 frontier."""
-    import fluid2d_tpu.utils.tpu_flags as tf
-    from fluid2d_tpu.ops.pallas_stencil import _vmem_tile, pick_tile2d
+def test_time_steps_returns_positive_seconds_per_step():
+    from fluid2d_tpu.models.simulator import make_run_fn
+    from fluid2d_tpu.scenes.compile import get_scene
+    from fluid2d_tpu.state import init_state
 
-    def dye_cost(t):  # the CIP dye cgrid model
-        blocks = 9 * (t + 16) + 0.6 * (t + 16) + 6 * t + 0.25 * t
-        return 2 * blocks + 10 * t + 20 * t
-
-    monkeypatch.setattr(tf, "_requested_kib", tf.DEFAULT_KIB)
-    assert _vmem_tile(3200, 1600, dye_cost) == 32
-
-    monkeypatch.setattr(tf, "_requested_kib", 24576)
-    assert _vmem_tile(3200, 1600, dye_cost) == 40
-
-    monkeypatch.setattr(tf, "_requested_kib", tf.RAISED_KIB)  # 48 MiB
-    assert _vmem_tile(3200, 1600, dye_cost) == 80
-
-    cheap2d = lambda t, ty: 4 * (2 * 15 * (t + 16) * (ty + 256) + 60 * t * (ty + 256))
-    monkeypatch.setattr(tf, "_requested_kib", tf.DEFAULT_KIB)
-    t16, ty16 = pick_tile2d(8192, 4096, cheap2d, halo_x=5)
-    monkeypatch.setattr(tf, "_requested_kib", tf.RAISED_KIB)
-    t24, ty24 = pick_tile2d(8192, 4096, cheap2d, halo_x=5)
-    assert t24 * ty24 >= t16 * ty16  # the raised limit never shrinks tiles
+    cfg = SimConfig.create(resolution=16, scheme="upwind", enable_dye=False)
+    scene = get_scene(1, 16)
+    sec, state = profiling.time_steps(make_run_fn(cfg), init_state(scene, cfg), scene, 4)
+    assert sec > 0
+    assert int(state.step) == 8  # warm-up call + timed call
 
 
-def test_forced_tile_must_divide():
-    """A forced tile_x that does not divide X must raise — a non-divisor
-    grid silently leaves trailing output rows unwritten (this exact bug
-    produced an invalid measurement, docs/BENCH.md ledger)."""
-    import jax.numpy as jnp
-    import pytest
-
-    from fluid2d_tpu.ops.pallas_stencil import PallasInfeasibleError, _check_tile
-    from fluid2d_tpu.ops.pallas_phases import confinement_pallas
-
-    assert _check_tile(32, 3200) == 32
-    with pytest.raises(PallasInfeasibleError):
-        _check_tile(48, 3200)  # 48 does not divide 3200
-    with pytest.raises(PallasInfeasibleError):
-        _check_tile(12, 3200)  # not a multiple of 8
-
-    v = jnp.zeros((2, 64, 128), jnp.float32)
-    fluid8 = jnp.ones((64, 128), jnp.int8)
-    with pytest.raises(PallasInfeasibleError):
-        confinement_pallas(v, v, fluid8, 1e-3, 5.0, 1 / 128,
-                           tile_x=24, interpret=True)  # 24 does not divide 64
+def test_device_info_names_the_device():
+    info = profiling.device_info()
+    assert info["platform"] == "cpu"
+    assert info["count"] >= 1
+    assert set(info) == {"platform", "device_kind", "count", "gpu_name", "power_limit"}

@@ -1,7 +1,7 @@
 """Golden parity against the reference's OWN source (scene layer).
 
-VERDICT r1 item #1: the round-1 suite proved parity against
-tests/oracle.py, written by the same builder — these tests remove that
+An oracle-only suite proves parity against
+tests/oracle.py, written by the same author — these tests remove that
 trust link for the scene/boundary-condition layer by *executing*
 ``/root/reference/fs/boundary_condition.py`` (unmodified) under the
 NumPy-backed taichi stub (tests/taichi_stub.py) and asserting
@@ -19,7 +19,16 @@ from fluid2d_tpu.scenes.builder import ASSET_DIR, color_ramp
 from fluid2d_tpu.scenes.scenes import build_scene_arrays
 from tests.taichi_stub import REFERENCE_ROOT, load_reference_fs
 
-fs = load_reference_fs()
+fs = None  # the reference's fs package, loaded by the fixture below
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_fs():
+    """Load the reference source once per module; skip when it is absent."""
+    global fs
+    if not REFERENCE_ROOT.is_dir():
+        pytest.skip(f"reference source not found at {REFERENCE_ROOT}")
+    fs = load_reference_fs()
 
 
 def _reference_arrays(num: int, res: int, *, enable_dye: bool = True):

@@ -75,6 +75,30 @@ def test_load_bc_override_replaces_stored_mask_scene(tmp_path: Path):
     )
 
 
+@pytest.mark.parametrize("old_keys", [{"kernels": "pallas", "sor_fuse": 2},
+                                      {"kernels": "auto"}])
+def test_old_checkpoint_with_kernel_keys_loads(tmp_path: Path, sim, old_keys):
+    """Checkpoints written while SimConfig still had the kernel-path
+    selectors (`kernels`, `sor_fuse`) load; the keys are dropped."""
+    import json
+
+    path = tmp_path / "ckpt.npz"
+    sim.save(path)
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    meta = json.loads(bytes(arrays["__config__"].tobytes()).decode())
+    meta["config"].update(old_keys)
+    arrays["__config__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+    restored = FluidSimulator.load(path)
+    assert restored.cfg == sim.cfg
+    assert restored.step_count == sim.step_count
+    np.testing.assert_array_equal(np.asarray(restored.state.v), np.asarray(sim.state.v))
+    restored.step(2)
+    assert np.isfinite(np.asarray(restored.state.v)).all()
+
+
 def test_orbax_checkpoint_roundtrip(tmp_path: Path, sim):
     """Directory path → orbax backend (per-shard writes for sharded runs)."""
     path = tmp_path / "ckpt_dir"

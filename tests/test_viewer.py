@@ -1,15 +1,16 @@
 """Headless (Agg backend) smoke tests for the interactive viewer —
-VERDICT r1 item #8: drive run_viewer's loop, key handlers (p/v/s/d/q)
+Drive run_viewer's loop, key handlers (p/v/s/d/q)
 and render cadence without a display, mirroring the reference's GGUI
 loop behavior (``/root/reference/main.py:93-134``)."""
 
-import matplotlib
+import pytest
 
+# matplotlib is an optional extra (the `viz` extra in pyproject.toml).
+matplotlib = pytest.importorskip("matplotlib")
 matplotlib.use("Agg", force=True)
 
 import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
-import pytest  # noqa: E402
 from matplotlib.backend_bases import KeyEvent  # noqa: E402
 
 from fluid2d_tpu.models.simulator import FluidSimulator  # noqa: E402
@@ -75,7 +76,7 @@ def test_viewer_vis_cycle_wraps_without_dye(monkeypatch, tmp_path):
 
 
 def test_viewer_initial_vis_clamped_without_dye(monkeypatch, tmp_path):
-    """ADVICE r1: --interactive -vis 3 -no_dye must not crash at the
+    """--interactive -vis 3 -no_dye must not crash at the
     first render."""
     sim = _make_sim(enable_dye=False)
     _drive(monkeypatch, {0: ["q"]})
@@ -90,7 +91,7 @@ def test_viewer_max_steps(monkeypatch, tmp_path):
 
 
 def test_mask_image_facade():
-    """VERDICT r1 item #8: custom-image scenes constructible from the
+    """Custom-image scenes constructible from the
     façade (parity+ vs fs/boundary_condition.py:508-513)."""
     sim = FluidSimulator.create(1, RES, scheme="upwind", vor_eps=None,
                                 mask_image="rabbit")
